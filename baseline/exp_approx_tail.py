@@ -1,8 +1,8 @@
-"""Pin the Pearson-III approx estimator's extreme tail (VERDICT r3 #5).
+"""Pin the Pearson-III approx estimator's extreme tail.
 
 Compares approx_significance's analytic tail against a fixed-n
-1,000,000-permutation Monte-Carlo (the shared-stream MXU evaluator, so
-this runs in seconds on CPU or TPU) on a ladder of two-cluster windows
+1,000,000-permutation Monte-Carlo (the shared-stream matmul evaluator,
+so this runs in seconds on CPU or GPU) on a ladder of two-cluster windows
 whose true p spans ~[1e-5, 1e-2].  Prints per-window
 log10(p_approx) - log10(p_mc) and the max over the extreme-tail band.
 

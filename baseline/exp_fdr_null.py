@@ -1,4 +1,4 @@
-"""Null-genome FDR calibration of the CSS pipeline (VERDICT r4 #4).
+"""Null-genome FDR calibration of the CSS pipeline.
 
 Round 4 made ``mc_stream="shared"`` (one genome-wide label permutation
 per draw, shared by every window — common random numbers) the default.

@@ -1,9 +1,9 @@
-"""Decompose the FET aggregate stage on-chip (round 5, VERDICT r4 #1).
+"""Decompose the FET aggregate stage on the GPU.
 
 At the chromosome-1 bench shape (4M SNPs -> ~400k windows, P=128) the
 aggregate — gather [B,P] ranks, sort, percentile picks, 100-replicate
-order-statistic bootstrap — is the whole FET wall.  This measures,
-solo on the chip, each term and the headroom knobs:
+order-statistic bootstrap — is most of the FET wall.  This measures,
+alone on the card, each term and the headroom knobs:
 
   gather        gather-only (bandwidth bound)
   gather_sort   + int32 sort + percentile picks (no bootstrap)

@@ -1,4 +1,4 @@
-"""On-chip throughput vs panel size m (VERDICT r4 weak #4, round 5).
+"""Device throughput vs panel size m.
 
 Measures warm FET and CSS engine throughput at stickleback scale
 (11+10) and modern resequencing scales (m=128: 70+58, m=200: 110+90) on
@@ -6,7 +6,7 @@ the same chromosome shape, so BASELINE.md can state the measured cost
 of leaving the LUT/21-lane sweet spots (correctness at these sizes is
 pinned by tests/test_large_panels.py).
 
-Run solo on the TPU machine: python baseline/exp_large_panel.py
+Run alone on the GPU: python baseline/exp_large_panel.py
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@
  *   - gsl_eigen_symmv via cyclic Jacobi + gsl_eigen_symmv_sort
  *
  * This is BASELINE INFRASTRUCTURE for honest benchmarking of the
- * reference C code on this machine (VERDICT round-1, item 2); it is not
+ * reference C code on the host; it is not
  * part of the divergence_tpu framework proper.  The shim is written
  * from the public GSL API documentation, not from GSL source.
  */

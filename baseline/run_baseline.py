@@ -1,7 +1,7 @@
 """Run the gcc-built reference C kernels on the bench.py workload.
 
-Produces the honest native baseline the TPU engine must beat
-(VERDICT round-1 item 2): the reference's own 64-thread pool
+Produces the honest native baseline the device engine must beat:
+the reference's own 64-thread pool
 (threadfisher.c:19-25, threadcss.c:19-25) compiled -O3 -mavx on THIS
 machine, timed on the exact synthetic chromosome bench.py uses.
 

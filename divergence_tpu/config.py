@@ -85,9 +85,8 @@ class FetConfig:
                                   # wall-clock seeded; see SURVEY.md §5)
 
     # "exact": float64 end-to-end — bit-comparable to the reference's C
-    # doubles (f64 is software-emulated on most TPUs).  "fast": float32
-    # compute — scores agree with exact to ~1e-5 relative, p-value
-    # distribution unchanged; ~2x throughput per chip (docs/PARITY.md).
+    # doubles.  "fast": float32 compute — scores agree with exact to
+    # ~1e-5 relative, p-value distribution unchanged (docs/PARITY.md).
     precision: str = "exact"
 
     def __post_init__(self) -> None:
@@ -131,7 +130,7 @@ class CssConfig:
     mc_chunk: int = 256
 
     # Windows per MC device launch.  Each launch costs a fixed dispatch
-    # latency (~0.3-0.5 s on remote-tunnel backends); genome-scale runs
+    # latency; genome-scale runs
     # have ~1e5 valid windows, so the batch must be large enough that the
     # launch count, not the latency, is negligible.  Bounds the
     # [mc_window_batch, m, mc_chunk] rank buffer (int32).
@@ -150,13 +149,11 @@ class CssConfig:
     p_mode: str = "mc"
 
     # MC chunk evaluator: "xla" = the device evaluator (shared-stream
-    # MXU matmul or per-window rank-fused pass, see mc_stream);
+    # matmul or per-window rank-fused pass, see mc_stream);
     # "native" = threaded C++ host evaluator with per-window early exit
     # (native/mc_native.cpp) — replays the same stream, the CPU-host
     # answer to the reference's pthread pool (falls back to "xla"
-    # without a toolchain).  (A "pallas" chunk kernel existed through
-    # round 3; deleted in round 4 — its edge was inside compile
-    # variance and the shared-stream path is ~3x faster.  docs/ROUND4.md.)
+    # without a toolchain).
     perm_backend: str = "xla"
 
     # Permutation draw stream for the xla backend: "mix" = threefry-keyed
@@ -171,8 +168,7 @@ class CssConfig:
     # and estimator; see kernels/perm.py:_scores_from_ranks):
     # "broadcast" = one fused [B, m, m, K] coefficient pass (the CPU
     # in-loop winner); "matmul" = between-group sum as a batched matmul
-    # via the +-1 identity (MXU candidate — the TPU A/B in bench-mc
-    # decides).  Applies to mc_stream="window" only.
+    # via the +-1 identity (the bench-mc A/B decides per device).  Applies to mc_stream="window" only.
     perm_form: str = "broadcast"
 
     # Permutation-stream design (kernels/perm.py:significance):
@@ -180,8 +176,7 @@ class CssConfig:
     # (seed, chunk) alone and shared by every window — one genome-wide
     # label permutation per draw (Westfall & Young's standard setup; the
     # group labels being permuted ARE the same individuals genome-wide).
-    # Collapses the chunk evaluation to one MXU matmul (measured 63.7G
-    # perms/s vs 260M per-window at production shape, round 4) and makes
+    # Collapses the chunk evaluation to one matmul and makes
     # p-values invariant under batching/sharding/resume by construction.
     # "window" = per-window (seed, chrom, slot, chunk)-pinned streams
     # (the round-3 design; required by perm_backend="native",

@@ -46,8 +46,7 @@ def upload_bucket(bucket: Bucket, sharding=None):
     Padding rows repeat lo/npos/slot 0 — harmless: their npos=0 marks
     them invalid, the kernels zero them, and the engines never scatter
     them back.  The three descriptors ship as ONE packed [3, B] transfer
-    (every host→device transfer pays a fixed round trip on remote-tunnel
-    backends) and are sliced apart on device.  Returns
+    and are sliced apart on device.  Returns
     (lo_d, npos_d, slot_d)."""
     import jax
     import jax.numpy as jnp
@@ -81,6 +80,22 @@ def _row_sharding(sharding):
             sharding.mesh, jax.sharding.PartitionSpec(None, *spec)
         )
     return sharding
+
+
+def replicate(x, sharding):
+    """``x`` placed on every device of the window sharding's mesh, so a
+    sharded program reads its replicated inputs (the genotype upload)
+    from local memory rather than from the default device.  Unchanged
+    without a mesh sharding."""
+    import jax
+
+    if isinstance(sharding, jax.sharding.NamedSharding):
+        return jax.device_put(
+            x, jax.sharding.NamedSharding(
+                sharding.mesh, jax.sharding.PartitionSpec()
+            )
+        )
+    return x
 
 
 def bucketize(

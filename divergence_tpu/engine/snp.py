@@ -27,15 +27,13 @@ class SnpPair:
         """Both populations as ONE [npad, asize+bsize] device array
         (group-A columns first), uploaded once and cached — one
         host→device transfer serves both engines and repeated runs
-        (every transfer pays a fixed round trip on remote-tunnel
-        backends, and HBM holds one genotype copy).
+        (device memory holds one genotype copy).
 
         The SNP axis is padded to the next power of two (fill = -10000,
         the missing code, which counts nothing in any kernel): the
         chromosome-level kernels (``fet_snp_logs``,
         ``dissimilarity_prefix``) would otherwise compile once per
-        distinct chromosome length — minutes each on remote-compile
-        backends — instead of once per power of two.  Window plans never
+        distinct chromosome length instead of once per power of two.  Window plans never
         index past the true ``npos``, so the pad rows are unreachable
         from any gather.
 

@@ -93,7 +93,7 @@ def _read_rows_chunked(
     straight into compact numpy arrays (8 B/row) with interned seqids —
     no per-row Python objects outlive a block, so chromosome-scale files
     (hundreds of MB) parse in bounded memory even without the native
-    parser (VERDICT round-1 weak #5)."""
+    parser."""
     names: list[str] = []
     name_idx: dict[str, int] = {}
     seq_chunks: list[np.ndarray] = []

@@ -1,319 +1,25 @@
-"""Batched small-matrix linear algebra for TPU.
+"""Batched small-matrix linear algebra for the CSS pipeline.
 
-The CSS pipeline needs eigendecompositions of thousands of tiny (m ~ 21)
-symmetric matrices per step (reference statistics/css/css.c:529-541 calls GSL's symmv per
-window, serially).  XLA's ``eigh`` targets single large matrices; a batched
-cyclic Jacobi with a parallel round-robin ordering vectorizes over the
-batch axis instead: every round applies mp/2 disjoint rotations to the
-whole batch as two batched matmuls.
+The CSS pipeline needs the top-2 eigenpairs of thousands of small
+(m ~ 21, up to a few hundred for resequencing panels) symmetric matrices
+per chromosome (reference statistics/css/css.c:529-541 calls GSL's symmv
+per window, serially).  XLA's batched ``eigh`` solves the whole batch in
+one call: LAPACK ``syevd`` on the CPU, cuSOLVER ``syevd``/batched
+``syevj`` on the GPU.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-import numpy as np
-
-
-def _round_robin_schedule(n: int) -> np.ndarray:
-    """All-pairs round-robin: (n-1) rounds of n/2 disjoint pairs (the
-    circle method — player 0 fixed, the rest rotate).  Disjoint pairs
-    within a round commute, so one round is a single orthogonal matrix."""
-    assert n % 2 == 0
-    players = list(range(n))
-    rounds = []
-    for _ in range(n - 1):
-        rounds.append([(players[i], players[n - 1 - i]) for i in range(n // 2)])
-        players = [players[0]] + [players[-1]] + players[1:-1]
-    return np.asarray(rounds, dtype=np.int32)  # [n-1, n/2, 2]
-
-
-@functools.partial(jax.jit, static_argnames=("sweeps",))
-def jacobi_eigh(
-    a: jnp.ndarray, sweeps: int = 10
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Eigendecomposition of a batch of symmetric matrices.
-
-    ``a``: [..., m, m] symmetric.  Returns (eigenvalues [..., m], unsorted;
-    eigenvectors [..., m, m], columns).  ``sweeps`` full round-robin sweeps
-    give quadratic convergence; 10 reaches f64 roundoff for m <= 64."""
-    m = a.shape[-1]
-    mp = m + (m % 2)
-    if mp != m:
-        pad = [(0, 0)] * (a.ndim - 2) + [(0, 1), (0, 1)]
-        # decoupled padding eigenpair; zero coupling keeps it inert
-        a = jnp.pad(a, pad)
-
-    schedule = jnp.asarray(_round_robin_schedule(mp))  # [R, mp/2, 2]
-    eye = jnp.eye(mp, dtype=a.dtype)
-    # zeros_like (not broadcast_to) so v0 inherits a's varying manual axes
-    # under shard_map — a replicated carry fails the scan vma check
-    v0 = jnp.zeros_like(a) + eye
-
-    def one_round(carry, pairs):
-        A, V = carry
-        p, q = pairs[:, 0], pairs[:, 1]          # [mp/2]
-        app = A[..., p, p]
-        aqq = A[..., q, q]
-        apq = A[..., p, q]
-        # inner rotation (|theta| <= pi/4), Golub & Van Loan 8.4: required
-        # for cyclic-Jacobi convergence — the atan2 branch admits swap
-        # rotations that cycle forever.  The tangent is computed in the
-        # overflow-free form t = sign(d)·apq / (|d| + hypot(d, apq)) with
-        # d = (aqq−app)/2 (equal to sign(τ)/(|τ|+√(1+τ²)), τ = d/apq) —
-        # the τ form divides by apq, which overflows to inf once the
-        # off-diagonal goes subnormal after convergence; IEEE inf
-        # arithmetic absorbs that on CPU, but TPU's double-float f64
-        # emulation turns inf−inf intermediates into NaN.
-        safe = jnp.abs(apq) > 0.0
-        d = 0.5 * (aqq - app)
-        hyp = jnp.sqrt(d * d + apq * apq)
-        t = jnp.sign(d) * apq / jnp.where(safe, jnp.abs(d) + hyp, 1.0)
-        # d == 0: τ = 0 → t = ±1 both zero the pivot; keep t = 1 like the
-        # τ-form special case (sign(0) zeroes the formula above)
-        t = jnp.where(d == 0.0, jnp.where(safe, 1.0, 0.0), t)
-        c = 1.0 / jnp.sqrt(1.0 + t * t)
-        s = t * c
-        c = jnp.where(safe, c, 1.0)
-        s = jnp.where(safe, s, 0.0)
-
-        # One orthogonal matrix per round: every index is in exactly one
-        # pair, so the rotation blocks tile the whole matrix.
-        R = jnp.zeros(A.shape, a.dtype)
-        R = R.at[..., p, p].set(c)
-        R = R.at[..., q, q].set(c)
-        R = R.at[..., p, q].set(s)
-        R = R.at[..., q, p].set(-s)
-
-        A = jnp.einsum("...ji,...jk,...kl->...il", R, A, R)
-        V = V @ R
-        # re-symmetrize to kill drift
-        A = 0.5 * (A + jnp.swapaxes(A, -1, -2))
-        return (A, V), None
-
-    def one_sweep(carry, _):
-        carry, _ = jax.lax.scan(one_round, carry, schedule)
-        return carry, None
-
-    (A, V), _ = jax.lax.scan(one_sweep, (a, v0), None, length=sweeps)
-    w = jnp.diagonal(A, axis1=-2, axis2=-1)
-    if mp != m:
-        w = w[..., :m]
-        V = V[..., :m, :m]
-    return w, V
-
-
-@functools.partial(jax.jit, static_argnames=("sweeps",))
-def jacobi_eigh_lanes(
-    a: jnp.ndarray, sweeps: int = 10
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """:func:`jacobi_eigh` in a lane-major layout: same rotation
-    schedule, same inner-rotation angle formulas, the batch stored on
-    the MINOR axis ([m, m, B] internally).
-
-    Why: for m ~ 21 the matmul/einsum form pads both matrix axes to the
-    TPU's 128-lane tiles (~36x wasted bandwidth on every rotation) —
-    measured 3.96s for 100k batched 21x21 f32 solves, identical to
-    XLA's ``eigh`` (same wall; both are layout-bound, not FLOP-bound).
-    With B riding the lanes, one round-robin round becomes FULL-ARRAY
-    elementwise updates plus one static partner permutation per axis —
-    no scatters, no per-pair gathers (an earlier indexed-update form
-    was TPU-scatter-bound at 6.9s):
-
-      ``A <- cv*A + sv*A[perm]``  (rows), then columns, then ``V``,
-
-    where ``perm[i]`` is i's rotation partner this round and
-    ``(cv, sv)[i]`` are the rotation coefficients seen from i's row —
-    ``sv`` carries the sign asymmetry of the pair (Rt on the left vs R
-    on the right).  Rounds scan over the stacked schedules (the round
-    body is traced ONCE — a Python-unrolled variant traced 21 round
-    bodies per sweep and cost ~10s of host tracing per process, which
-    outweighed its slightly cheaper static gathers for one-shot CLI
-    runs); sweeps scan outside with one re-symmetrization each.
-
-    ``a``: [B, m, m] symmetric.  Returns (eigenvalues [B, m] unsorted,
-    eigenvectors [B, m, m], columns)."""
-    assert a.ndim == 3, "jacobi_eigh_lanes expects one batch axis"
-    m = a.shape[-1]
-    mp = m + (m % 2)
-    A = jnp.moveaxis(a, 0, -1)                       # [m, m, B]
-    if mp != m:
-        # decoupled padding eigenpair; zero coupling keeps it inert
-        A = jnp.pad(A, ((0, 1), (0, 1), (0, 0)))
-
-    schedule = _round_robin_schedule(mp)             # numpy: static indices
-    perms, roles = [], []
-    for pairs in schedule:
-        perm = np.empty(mp, dtype=np.int64)
-        role = np.empty(mp, dtype=np.float64)
-        for p, q in pairs:
-            perm[p], perm[q] = q, p
-            role[p], role[q] = 1.0, -1.0             # p-side / q-side
-        perms.append(perm)
-        roles.append(role)
-    eye = jnp.eye(mp, dtype=a.dtype)
-    V0 = jnp.zeros_like(A) + eye[..., None]
-    idx = np.arange(mp)
-    perm_stack = jnp.asarray(np.stack(perms).astype(np.int32))  # [R, mp]
-    role_stack = jnp.asarray(np.stack(roles), dtype=a.dtype)    # [R, mp]
-
-    def one_round(carry, xs):
-        A, V = carry
-        perm, role = xs                              # traced [mp]
-        diag = A[idx, idx, :]                        # [mp, B]
-        apq = A[idx, perm, :]                        # [mp, B] (symmetric)
-        # identical angle math to jacobi_eigh, computed from each
-        # index's own perspective...
-        safe = jnp.abs(apq) > 0.0
-        d = 0.5 * (jnp.take(diag, perm, axis=0) - diag)
-        hyp = jnp.sqrt(d * d + apq * apq)
-        t = jnp.sign(d) * apq / jnp.where(safe, jnp.abs(d) + hyp, 1.0)
-        t = jnp.where(d == 0.0, jnp.where(safe, 1.0, 0.0), t)
-        # ...then DISTRIBUTED from the pair's p-side so both members
-        # share bit-identical (c, s).  Relying on d_q == -d_p (and
-        # |apq_q| == |apq_p|) being bit-exact is NOT safe under jit:
-        # XLA can rematerialize the fused A entries differently per
-        # consumer, letting one side of a pair hit the d == 0.0 tie
-        # branch while the other takes the sign(d) formula — a
-        # grossly non-orthogonal "rotation" that corrupted V on
-        # degenerate inputs (caught by
-        # test_jacobi_lanes_tie_and_degenerate: jit vs no-jit of the
-        # SAME code differed).  The structural gather makes pair
-        # consistency independent of value reproducibility.
-        role_j = role[:, None]
-        tp = jnp.where(role_j > 0, t, jnp.take(t, perm, axis=0))
-        safep = jnp.where(role_j > 0, safe, jnp.take(safe, perm, axis=0))
-        c = 1.0 / jnp.sqrt(1.0 + tp * tp)
-        s = tp * c
-        c = jnp.where(safep, c, 1.0)
-        s = jnp.where(safep, s, 0.0)
-        # row p needs (c, -s); row q needs (c, +s)
-        sv = -role_j * s
-
-        # fused two-sided update — one pass over A with four gathered
-        # reads instead of two dependent row/col passes (HBM traffic is
-        # the whole cost at this shape)
-        A = (
-            (c[:, None, :] * c[None, :, :]) * A
-            + (c[:, None, :] * sv[None, :, :]) * jnp.take(A, perm, axis=1)
-            + (sv[:, None, :] * c[None, :, :]) * jnp.take(A, perm, axis=0)
-            + (sv[:, None, :] * sv[None, :, :]) * A[perm[:, None], perm[None, :], :]
-        )
-        V = c[None, :, :] * V + sv[None, :, :] * jnp.take(V, perm, axis=1)
-        return (A, V), None
-
-    def one_sweep(carry, _):
-        carry, _ = jax.lax.scan(one_round, carry, (perm_stack, role_stack))
-        A, V = carry
-        # re-symmetrize once per sweep to kill rounding drift (the
-        # two-sided update is symmetric in exact arithmetic; per-round
-        # resymmetrization only added HBM passes)
-        A = 0.5 * (A + jnp.swapaxes(A, 0, 1))
-        return (A, V), None
-
-    (A, V), _ = jax.lax.scan(one_sweep, (A, V0), None, length=sweeps)
-    w = jnp.moveaxis(A[idx, idx, :], -1, 0)          # [B, mp]
-    V = jnp.moveaxis(V, -1, 0)                       # [B, mp, mp]
-    if mp != m:
-        w = w[:, :m]
-        V = V[:, :m, :m]
-    return w, V
-
-
-@functools.partial(jax.jit, static_argnames=("sweeps", "chunk"))
-def jacobi_eigh_lanes_chunked(
-    a: jnp.ndarray, sweeps: int = 10, chunk: int = 128
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """:func:`jacobi_eigh_lanes` over batch chunks via ``lax.map``.
-
-    Result-identical to the unchunked call (each matrix's solve is
-    independent; zero-padded tail matrices are inert — every rotation
-    no-ops on them — and are sliced away).  Exists because XLA:TPU
-    kills the worker process on single emulated-f64 Jacobi programs
-    above ~32M matrix elements (round 5, BASELINE.md large-panel
-    envelope); the chunked form keeps each program below the
-    measured-safe footprint.  Backend-agnostic, so the pad/reshape
-    bookkeeping is CI-testable on CPU (tests/test_linalg.py)."""
-    B, m = a.shape[0], a.shape[-1]
-    pad = (-B) % chunk
-    ap = jnp.pad(a, ((0, pad), (0, 0), (0, 0)))
-    ap = ap.reshape(-1, chunk, m, m)
-    w, v = jax.lax.map(lambda x: jacobi_eigh_lanes(x, sweeps=sweeps), ap)
-    return w.reshape(-1, m)[:B], v.reshape(-1, m, m)[:B]
 
 
 def top2_eig(a: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Top-2 eigenpairs (descending) of a batch of symmetric matrices.
 
     Returns (vals [..., 2], vecs [..., m, 2]).  Matches the reference's
-    'keep the dims largest eigenvalues' (reference statistics/css/css.c:543-553).
-
-    Backend routing:
-
-    * **TPU f32, m <= 64**: the lane-major batched Jacobi
-      (:func:`jacobi_eigh_lanes`).  XLA's batched ``eigh`` pads both
-      m~21 matrix axes to 128-lane tiles and took 3.96s for 100k
-      windows — ~95% of the whole CSS phase 1 (round-4 profile); the
-      lane-major Jacobi does the same solves ~25x faster.
-    * **TPU f32, m > 64**: XLA's ``eigh``.  The Jacobi's full-array
-      rotation passes are O(m^3 B) HBM traffic and lose their layout
-      edge as m approaches the 128-lane tile (round-5 A/B at B=997:
-      m=64 0.16s vs 0.20s, m=96 0.76s vs 0.36s, m=128 2.8s vs 0.53s,
-      m=200 9.4s vs 1.2s — and eigh's top-2 error there is ~3e-6,
-      BETTER than the 7-sweep Jacobi's ~9e-6).
-    * **TPU emulated f64 (exact mode), any m**: the Jacobi — the only
-      accurate option: XLA's eigh runs its iteration at ~f32 accuracy
-      (~2e-6 eigenvalue error measured) and intermittently returns NaN
-      eigenpairs for well-conditioned inputs, while the Jacobi — pure
-      arithmetic, NaN-free by construction — delivers the full
-      emulated-f64 accuracy that ``precision="exact"`` promises.
-    * **CPU**: LAPACK ``eigh`` (fast and exact there; also what the
-      test suite exercises against the oracle)."""
-    if (
-        jax.default_backend() == "tpu"
-        and a.ndim == 3
-        and a.dtype == jnp.float32
-        and a.shape[-1] > 64
-    ):
-        w, v = jnp.linalg.eigh(a)      # ascending
-        return w[..., ::-1][..., :2], v[..., ::-1][..., :2]
-    if jax.default_backend() == "tpu" and a.ndim == 3:
-        # f32 reaches its roundoff in fewer sweeps (quadratic
-        # convergence; 7 measured at ~2e-6 top-2 error for m=21, the
-        # same as 10); f64 keeps the full budget
-        sweeps = 7 if a.dtype == jnp.float32 else 10
-        B, m = a.shape[0], a.shape[-1]
-        # Emulated-f64 Jacobi at large m*m*B reproducibly CRASHES the
-        # TPU worker (round 5: [997, 200, 200] f64 kills the worker
-        # process both times; [128, 200, 200] and [997, 160, 160] run
-        # fine) — chunk the batch so each device program stays below
-        # the measured-safe footprint.
-        if a.dtype != jnp.float32 and m > 64 and B * m * m > 8_000_000:
-            # chunk = the largest batch whose m*m*chunk stays under the
-            # measured-safe footprint; floor 1 (a floor of 8 could put
-            # the per-program footprint back over the bound for m in
-            # the ~1000+ range — round-5 review finding 5).  B <= chunk
-            # is impossible here: chunk*m^2 <= 8M < B*m^2.
-            chunk = max(1, 8_000_000 // (m * m))
-            w, v = jacobi_eigh_lanes_chunked(a, sweeps=sweeps, chunk=chunk)
-            order = jnp.argsort(-w, axis=-1)[..., :2]
-            top_vals = jnp.take_along_axis(w, order, axis=-1)
-            vecs = jnp.take_along_axis(v, order[..., None, :], axis=-1)
-            return top_vals, vecs
-        w, v = jacobi_eigh_lanes(a, sweeps=sweeps)    # unsorted
-        order = jnp.argsort(-w, axis=-1)[..., :2]
-        top_vals = jnp.take_along_axis(w, order, axis=-1)
-        vecs = jnp.take_along_axis(v, order[..., None, :], axis=-1)
-        return top_vals, vecs
-    if a.dtype == jnp.float64 and jax.default_backend() == "tpu":
-        w, v = jacobi_eigh(a)          # unsorted
-        order = jnp.argsort(-w, axis=-1)[..., :2]
-        top_vals = jnp.take_along_axis(w, order, axis=-1)
-        vecs = jnp.take_along_axis(v, order[..., None, :], axis=-1)
-        return top_vals, vecs
+    'keep the dims largest eigenvalues' (reference
+    statistics/css/css.c:543-553).  A solver failure surfaces as NaN
+    eigenpairs (JAX's ``eigh`` contract), which the callers' NaN checks
+    report."""
     w, v = jnp.linalg.eigh(a)          # ascending
-    top_vals = w[..., ::-1][..., :2]
-    vecs = v[..., ::-1][..., :2]
-    return top_vals, vecs
+    return w[..., ::-1][..., :2], v[..., ::-1][..., :2]

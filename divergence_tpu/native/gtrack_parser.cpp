@@ -1,7 +1,7 @@
 // Fast GTrack valued-points parser (host runtime, C++).
 //
 // The reference's native layer is C (kernels + pthread pool); in the
-// TPU-native framework the compute lives on the TPU and the host-side
+// accelerator-native framework the compute lives on the device and the host-side
 // runtime that still deserves native code is data loading: a chromosome-
 // scale GTrack file is hundreds of MB of "seqid\tpos\tvalue\tgenomeid"
 // rows (reference data model, tools/VCFConvert.py:75-86; the C test

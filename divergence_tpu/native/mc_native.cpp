@@ -1,6 +1,6 @@
 // Native threaded adaptive permutation Monte-Carlo for CSS significance.
 //
-// The TPU path (kernels/perm.py:mc_significance) evaluates fixed-shape
+// The device path (kernels/perm.py:mc_significance) evaluates fixed-shape
 // permutation chunks for a whole window batch until the slowest window
 // finishes — the right trade on an accelerator (one dispatch, fused
 // batched arithmetic).  On a CPU host the right trade is the opposite:

@@ -1,5 +1,5 @@
 """CPU oracle: an independent NumPy statement of the exact reference
-semantics, used as the parity fixture generator for the TPU kernels.
+semantics, used as the parity fixture generator for the device kernels.
 
 A faster C++ twin lives in ``native/`` (same math, std::thread pool) and is
 the measured CPU baseline for the benchmarks.

@@ -1,7 +1,7 @@
 """NumPy oracle of the reference semantics (CPU, serial).
 
 Every function here restates — in independent NumPy/Python code — the exact
-math of the reference C kernels, so the TPU kernels can be parity-tested
+math of the reference C kernels, so the device kernels can be parity-tested
 against a bit-careful CPU ground truth:
 
 * FET:  reference statistics/fisher/cFisher.c

@@ -1,4 +1,4 @@
-"""Device-mesh parallelism: window-axis sharding over ICI, multi-host DCN.
+"""Device-mesh parallelism: window-axis sharding, multi-host launch.
 
 Replaces the reference's entire parallel runtime — the 64-thread pthread
 pool with its mutex-guarded dynamic task counter (reference

@@ -2,8 +2,8 @@
 
 The reference parallelizes with a 64-thread pthread pool pulling 100-window
 tasks off a mutex-guarded counter (reference statistics/css/threadcss.c:19-25, :226-236).
-On TPU the same work distribution is a 1-D device mesh with the *window*
-axis sharded over ICI: windows are embarrassingly parallel (disjoint output
+Here the same work distribution is a 1-D device mesh with the *window*
+axis sharded over the devices: windows are embarrassingly parallel (disjoint output
 slots, reference statistics/css/threadcss.c:262-269), so no collective is needed for scoring — only
 the chromosome-level summary statistics reduce (see ``sharded.py``).
 """

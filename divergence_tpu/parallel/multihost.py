@@ -1,11 +1,11 @@
-"""Multi-host (DCN) launch and work partitioning.
+"""Multi-host launch and work partitioning.
 
 The reference fans out per-chromosome jobs through the HyperBrowser
 platform (reference tools/FisherExactTestSNPTool.py:167-171, one region job
 per chromosome); there is no in-repo distributed backend (SURVEY.md §2.5).
-The TPU-native design: each *host* of a pod slice takes a disjoint set of
+The design: each *host* of a cluster takes a disjoint set of
 chromosomes (or window shards of very large chromosomes), runs the local
-mesh engine over its ICI domain, and writes its score-track shard; the
+mesh engine over its local devices, and writes its score-track shard; the
 tiny global statistics needed by the region callers (median / percentile /
 BH-FDR sort over one double per 500 bp) are computed host-side after a
 gather — never as an on-device sort (SURVEY.md §5).
@@ -23,7 +23,7 @@ def initialize_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Bring up JAX multi-host over DCN.
+    """Bring up JAX multi-host.
 
     Thin wrapper over ``jax.distributed.initialize`` so single-host runs
     (the common case, and all tests) never touch it."""
@@ -47,7 +47,7 @@ class WorkRange:
 
     ``slot_lo``/``slot_hi`` are window *output slots* (start // wstep),
     half-open.  A range covering ``[0, nslots)`` is the whole chromosome.
-    Slot-granular splitting is the TPU-native generalization of the
+    Slot-granular splitting is the device-mesh generalization of the
     reference's window-range tasking
     (reference statistics/css/threadcss.c:114-124): because every
     stochastic stream is keyed on (chrom, slot) — never on batch or host
@@ -87,8 +87,8 @@ def partition_chromosomes(
     count).  Without ``seqid_nslots`` the assignment is chromosome-
     granular (rounds 2-4 behavior).  With it, any chromosome whose
     weight exceeds the per-host average is first cut into near-equal
-    contiguous SLOT ranges (VERDICT r4 missing #1: a genome that is one
-    large chromosome previously got zero multi-host speedup); pieces
+    contiguous SLOT ranges (a genome that is one large chromosome would
+    otherwise get no multi-host speedup); pieces
     are then assigned largest-first to the least-loaded host.
     Deterministic across hosts — every process computes the same
     assignment with no communication.  Each host's input span is

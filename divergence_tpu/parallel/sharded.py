@@ -5,19 +5,18 @@ the mesh's window axis: each device scores its windows (FET score +
 bootstrap stddev, CSS score + distance matrix, one permutation-MC chunk
 of the null) locally, and the chromosome-level summary statistics
 (window counts, score sums/maxima consumed by the region callers) are
-global reductions that XLA lowers to ICI collectives.
+global reductions that XLA lowers to device collectives.
 
 This is the SAME parallel mechanism the engines use in production
 (window-axis data parallelism via input shardings — see
 ``engine/fet_engine.py`` ``sharding=`` and ``kernels/perm.py``
 ``significance(sharding=)``): sharded inputs + jit, no ``shard_map``.
-Round 1 had two disjoint mechanisms (VERDICT item 4); this module is now
-the single-dispatch composition of exactly the kernels the engines call,
+This module is the single-dispatch composition of exactly the kernels the engines call,
 used by ``__graft_entry__.dryrun_multichip`` and ``bench-scaling``.
 
 RNG: per-window streams from :func:`divergence_tpu.kernels.perm.window_keys`
 (a pure function of the window id), so results are bit-identical across
-mesh sizes — the TPU replacement for the reference's per-thread
+mesh sizes — the replacement for the reference's per-thread
 wall-clock seeding (reference statistics/css/threadcss.c:220-223); the 1-vs-N equivalence test
 (tests/test_parallel.py) is the analogue of the reference's
 serial-vs-threaded diff (reference statistics/css/testcss.c:31-142).

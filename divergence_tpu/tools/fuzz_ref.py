@@ -43,7 +43,7 @@ implementation — tests/test_ref_c_differential.py imports them.
 
 Run: ``python -m divergence_tpu.tools.fuzz_ref --trials 40 [--seed0 N]
 [--sparse] [--fast] [--big-panels]``.  ``--fast`` adds the f32 engine
-lane (VERDICT r3 item 9): the round-3 fast-mode NaN was found by manual
+lane: the round-3 fast-mode NaN was found by manual
 driving because this fuzzer only compared exact-mode columns.
 ``--big-panels`` draws 20-110 individuals per population (round 5),
 straddling the FET LUT bound so the off-LUT path and large-m CSS are

@@ -144,7 +144,7 @@ def test_approx_escalation_extends_stream(null_batch):
 
 
 def test_approx_extreme_tail_anticonservative_bound():
-    """Extreme-tail pin (VERDICT r3 #5): on two-cluster windows whose
+    """Extreme-tail pin: on two-cluster windows whose
     true p (measured by a FIXED 250k-permutation MC, shared stream) lies
     in [1e-4, 1e-2], the Pearson-III tail is ANTI-conservative — it
     UNDERestimates p by up to ~0.65 decades (~4.5x) and never

@@ -1,4 +1,4 @@
-"""Parity tests: TPU CSS kernels vs the CPU oracle."""
+"""Parity tests: device CSS kernels vs the CPU oracle."""
 
 import numpy as np
 import pytest
@@ -54,9 +54,9 @@ def test_cmds_distance_parity(rng):
         d = (d + d.T) / 2
         np.fill_diagonal(d, 0)
         x_orc = orc.cmds(d)
-        x_tpu = np.asarray(kcss.cmds(jnp.asarray(d)[None]))[0]
+        x_dev = np.asarray(kcss.cmds(jnp.asarray(d)[None]))[0]
         np.testing.assert_allclose(
-            orc.calc_dist(x_tpu), orc.calc_dist(x_orc), rtol=1e-8, atol=1e-10
+            orc.calc_dist(x_dev), orc.calc_dist(x_orc), rtol=1e-8, atol=1e-10
         )
 
 

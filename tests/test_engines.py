@@ -237,9 +237,9 @@ def test_css_prefix_budget_fallback(rng, monkeypatch):
 
 
 def test_css_gather_unroll_large_m(rng, monkeypatch):
-    """The gather path's statically-unrolled slice loop (exact mode,
-    m > 64 — the lax.map-over-f64-body TPU worker-crash workaround,
-    round 5) produces the same scores/p as the prefix path on CPU."""
+    """The gather path at a large panel (m = 70, exact mode: ``lax.map``
+    over f64 window slices with m x m eigensolves) produces the same
+    scores/p as the prefix path."""
     from divergence_tpu.engine import css_engine
 
     npos, region = 120, 8_000

@@ -1,6 +1,6 @@
 """Null-genome FDR calibration of the region-calling pipeline.
 
-VERDICT r4 weak #3: the round-4 default ``mc_stream="shared"`` makes
+The round-4 default ``mc_stream="shared"`` makes
 p-values positively correlated across windows (common random numbers);
 per-window exactness was tested but the BH-FDR region caller's behavior
 under that correlation was asserted by argument (PRDS), not experiment.

@@ -1,4 +1,4 @@
-"""Parity tests: TPU FET kernel vs the CPU oracle."""
+"""Parity tests: device FET kernel vs the CPU oracle."""
 
 import numpy as np
 import pytest

@@ -5,7 +5,7 @@ reference C: zero unattributed discrepancies (``bugs``), and the
 attribution counters stay wired.  Seeds 5000.. include a known
 fp-tie-heavy FET panel, so the deviation-7(b) classifier is exercised,
 not just trivially zero.  Full sweeps (150+ trials) are run ad hoc —
-see docs/ROUND2.md for the tally.
+see docs/FUZZ_LOG.md for the tally.
 """
 
 import pytest

@@ -3,7 +3,7 @@
 Every assertion here pins a value from the reference's own printf test
 harnesses (testFisher.c, testcss.c — see SURVEY.md §4), turning the
 reference's eyeball tests into real asserted tests.  The oracle is then the
-trusted parity anchor for the TPU kernels.
+trusted parity anchor for the device kernels.
 """
 
 import math

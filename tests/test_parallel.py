@@ -1,7 +1,7 @@
 """Mesh / GSPMD parallelism tests on the virtual 8-device CPU mesh.
 
 The reference's only parallel-correctness test is a serial-vs-threaded
-output diff (reference testcss.c:31-142).  The TPU-native equivalent is
+output diff (reference testcss.c:31-142).  The device-mesh equivalent is
 1-device-vs-N-device equivalence of the sharded divergence step — and,
 since every RNG stream is (seed, chrom, slot)-pinned, the equivalence is
 bitwise for the stochastic outputs too.
